@@ -1,7 +1,7 @@
 """Thin-lens camera: host-side precompute + batched ray generation.
 
 Reference: internal/camera/camera.go. The per-ray work (defocus disc sample,
-shutter-time sample, direction build, camera.go:61-80) is pure VPU math over
+shutter-time sample, direction build, camera.go:61-80) is elementwise math over
 the whole pixel batch.
 """
 

@@ -18,7 +18,7 @@ import time
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="izpi-tpu",
-        description="TPU-native differentiable spectral path tracer",
+        description="differentiable spectral path tracer on JAX",
     )
     p.add_argument("--scene", default="cornell_box_pyramid_spectral",
                    help="built-in scene name or .pbtxt scene file")
@@ -51,7 +51,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--shard-prims", action="store_true",
                    help="shard the primitive SoA 1/N per device instead of "
                         "replicating the scene (the >HBM-scene mode; "
-                        "samples replicated, closest hit reduced over ICI)")
+                        "samples replicated, closest hit reduced across "
+                        "devices)")
     p.add_argument("--num-workers", type=int, default=0,
                    help="devices to use (0 = all)")
     p.add_argument("--profile-dir", default=None,
@@ -66,8 +67,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "(the headless analog of the live display window)")
     p.add_argument("--preview-serve", type=int, default=None, metavar="PORT",
                    help="serve the live preview at http://localhost:PORT "
-                        "(the TPU-era analog of the reference's SDL/Fyne "
-                        "display; implies --preview)")
+                        "(the analog of the reference's SDL/Fyne display; "
+                        "implies --preview)")
     return p
 
 
@@ -94,7 +95,7 @@ def main(argv=None) -> int:
 
     distributed = args.role in ("leader", "worker")
     if distributed:
-        # Multi-host: one process per host joins the cluster (the TPU-native
+        # Multi-host: one process per host joins the cluster (the JAX
         # replacement for mDNS discovery + the gRPC setup handshake,
         # leader/setup.go:22-131). leader = process 0.
         from izpi_tpu.parallel import dist
@@ -103,11 +104,9 @@ def main(argv=None) -> int:
         if pid is None:
             pid = 0 if args.role == "leader" else None
         if pid is None and args.coordinator:
-            # Bare-host worker: jax.distributed cannot auto-detect a rank
-            # outside a managed environment (Cloud TPU/GKE metadata). Fail
-            # with the fix instead of a deep runtime error.
-            auto_env = ("CLOUD_TPU_TASK_ID", "TPU_WORKER_ID", "JAX_PROCESS_ID")
-            if not any(os.environ.get(k) for k in auto_env):
+            # A worker needs an explicit rank: fail with the fix instead of
+            # a deep runtime error.
+            if not os.environ.get("JAX_PROCESS_ID"):
                 raise SystemExit(
                     "--role worker with --coordinator on a bare host needs "
                     "an explicit rank: pass --process-id <rank> (1..N-1; "

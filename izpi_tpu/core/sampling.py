@@ -65,10 +65,9 @@ def random_in_unit_sphere(u1, u2, u3):
     phi = TWO_PI * u2
     s = jnp.sqrt(jnp.maximum(1.0 - z * z, 0.0))
     d = jnp.stack([s * jnp.cos(phi), s * jnp.sin(phi), z], axis=-1)
-    # cbrt spelled exp(log/3): Mosaic lacks a cbrt lowering, and the Pallas
-    # megakernel must consume BIT-IDENTICAL values for stream parity, so the
-    # oracle uses the same formula (clamp moves exact 0 to 1e-10, far below
-    # the fuzz scale).
+    # cbrt spelled exp(log/3): the Pallas megakernel uses the same formula
+    # so that both consume the same values for stream parity (the clamp
+    # moves exact 0 to 1e-10, far below the fuzz scale).
     r = jnp.exp(jnp.log(jnp.maximum(u3, 1e-30)) * jnp.float32(1.0 / 3.0))
     return d * r[..., None]
 

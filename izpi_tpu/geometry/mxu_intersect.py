@@ -1,8 +1,7 @@
-"""MXU-formulated brute-force intersection.
+"""Matrix-form brute-force intersection.
 
-Path tracing is normally pure VPU work (the TPU's weak unit); the MXU
-(systolic array) only runs matmuls. This module rewrites the ray×primitive
-t-tests as ONE batched matmul per primitive chunk:
+This module rewrites the ray×primitive t-tests as ONE batched matrix
+product per primitive chunk:
 
     A = F @ K,   F = [o, d, o×d, 1] ∈ (N, 10),   K ∈ (10, 6·P)
 
@@ -12,10 +11,11 @@ using the multilinearity of the scalar triple products in Möller–Trumbore:
     v·a = det[d, o−v0, e1]          = −(o×d)·e1 − d·(v0×e1)
     t·a = det[e2, o−v0, e1]         =  o·(e1×e2) − v0·(e1×e2)
 (rects: plane/param dots against n, e1/|e1|², e2/|e2|²; static spheres:
-center dots; moving spheres fall back to the VPU path — their center depends
-on the per-ray time, which breaks the shared-matrix factorization).
+center dots; moving spheres fall back to the elementwise path — their
+center depends on the per-ray time, which breaks the shared-matrix
+factorization).
 
-Only the O(N·P) reduction work changes unit; the algebra is identical to
+Only the O(N·P) reduction work changes form; the algebra is identical to
 primitives.triangle_t/rect_t/sphere_t up to fp reassociation, so results
 agree to ~1e-6 relative — covered by differential tests.
 """
@@ -35,7 +35,7 @@ from izpi_tpu.geometry import primitives as prim
 class MxuTables(NamedTuple):
     k: jax.Array            # (10, P, 6) f32 feature matrix
     kind: jax.Array         # (P,) int32
-    moving_idx: jax.Array   # (Pm,) int32 — moving spheres (VPU fallback)
+    moving_idx: jax.Array   # (Pm,) int32 — moving spheres (elementwise)
     sph_r2: jax.Array       # (P,) radius² for spheres (0 otherwise)
 
 
@@ -110,10 +110,9 @@ def _chunk_t(tables: MxuTables, sl: int, chunk: int, f, o, d, t_min, t_max):
     kind = jax.lax.dynamic_slice_in_dim(tables.kind, sl, chunk)
     r2 = jax.lax.dynamic_slice_in_dim(tables.sph_r2, sl, chunk)
 
-    # precision=HIGHEST: TPU matmuls default to bf16 input passes, whose
-    # 8-bit mantissas flip near-tangent hit decisions (small spheres in
-    # Shirley-scale scenes went visibly dark). The 6-pass f32 matmul is
-    # still MXU throughput, just 3× the passes.
+    # precision=HIGHEST: reduced-precision products (bf16 passes, or TF32
+    # on a GPU) flip near-tangent hit decisions (small spheres in
+    # Shirley-scale scenes went visibly dark), so the product runs in f32.
     a_mat = jnp.einsum("nf,fpc->npc", f, kc,
                        precision=jax.lax.Precision.HIGHEST,
                        preferred_element_type=jnp.float32)  # (N, C, 6)
@@ -172,7 +171,7 @@ def _chunk_t(tables: MxuTables, sl: int, chunk: int, f, o, d, t_min, t_max):
 
 def make_intersector(prims: prim.Prims, tables: MxuTables,
                      chunk: int = 512):
-    """Closest-hit intersector using the MXU tables; returns the same Hit
+    """Closest-hit intersector using the matrix tables; returns the same Hit
     as primitives.intersect_brute."""
     p_total = int(prims.count)
     n_moving = int(tables.moving_idx.shape[0])
@@ -212,7 +211,7 @@ def make_intersector(prims: prim.Prims, tables: MxuTables,
                                              (best_t, best_idx))
 
         if n_moving:
-            # Moving spheres: per-ray centers, VPU path over the few of them.
+            # Moving spheres: per-ray centers, elementwise over the few.
             mi = tables.moving_idx
             t_m, ok_m = prim.prim_t(
                 prims.kind[mi][None, :], prims.g0[mi][None],

@@ -3,7 +3,7 @@
 The reference dispatches `Hitable.Hit` virtually per object (internal/hitable).
 Here every primitive lives in one flat struct-of-arrays and intersection is a
 data-parallel computation over (ray, primitive) pairs — integer-tagged selects
-instead of virtual calls, so XLA vectorizes everything onto the VPU.
+instead of virtual calls, so XLA vectorizes everything.
 
 Primitive kinds:
   0 TRIANGLE  g0=v0, g1=edge1, g2=edge2, g3=geometric normal
@@ -189,8 +189,8 @@ def prim_t(kind, g0, g1, g2, g3, o, d, time, t_min, t_max):
 
 # --------------------------------------------------------------------------
 # Brute-force closest hit — the correctness oracle and the fast path for
-# small scenes (a dense (N rays × P prims) computation is pure VPU work with
-# zero divergence; for Cornell-sized scenes this beats any BVH on TPU).
+# small scenes (a dense (N rays × P prims) computation with zero
+# divergence).
 # --------------------------------------------------------------------------
 
 
@@ -345,13 +345,12 @@ def finalize_hit(prims: Prims, o, d, time, t, idx, hit) -> Hit:
 # --------------------------------------------------------------------------
 # Gather-free unrolled closest hit for small scenes.
 #
-# finalize_hit's per-field gathers dominate small-scene intersection on TPU
-# (measured ~4-8 ms at 512k rays for a FOUR-primitive scene — each XLA
-# gather carries ~1 ms of fixed cost); argmin/take_along_axis over a tiny
-# (N, P) minor axis is similarly mis-laid-out. For P <= ~64 the whole
-# closest-hit unrolls over the primitives with every constant baked as an
-# XLA immediate — pure (N,)-planar VPU work, zero gathers, zero argmins —
-# the XLA-level sibling of the Pallas megakernel's _scan_prims.
+# finalize_hit's per-field gathers dominated small-scene intersection on
+# the previous accelerator; argmin/take_along_axis over a tiny (N, P) minor
+# axis is similarly mis-laid-out. For P <= ~64 the whole closest-hit
+# unrolls over the primitives with every constant baked as an XLA
+# immediate — pure (N,)-planar elementwise work, zero gathers, zero
+# argmins — the XLA-level sibling of the Pallas megakernel's _scan_prims.
 # --------------------------------------------------------------------------
 
 

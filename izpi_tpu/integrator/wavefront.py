@@ -4,7 +4,7 @@ The bounce kernels live in izpi_tpu.integrator.path (shared with the
 lockstep oracle and the differentiable scan). This module only schedules:
 a fixed pool of N path slots; each iteration advances every live path one
 bounce, deposits the radiance of finished paths, and refills freed slots
-with fresh camera samples — the TPU answer to izpi's work-stealing
+with fresh camera samples — the device answer to izpi's work-stealing
 goroutine pool (render/renderer.go:112-147).
 
 Two schedulers:
@@ -18,10 +18,9 @@ Two schedulers:
   indices (replica k of r handles samples k, k+r, k+2r, …). The radiance
   deposit is a pure per-slot accumulator and the refill a per-slot
   counter — ZERO scatter-adds and ZERO cumsum queues per bounce. The
-  catch (measured round 4): it CONVOYS on per-pixel depth variance — a
-  slot pinned to a deep pixel runs long after shallow slots drain (48%
-  occupancy on pbr_ibl, 32% on the dragon box), which outweighs the
-  queue's ~2-4 ms/iteration of scatter+cumsum at production sizes.
+  catch: it CONVOYS on per-pixel depth variance — a slot pinned to a deep
+  pixel runs long after shallow slots drain, which on the previous
+  accelerator outweighed the queue's scatter+cumsum cost.
 
 Both enumerate exactly the (pixel, sample) pairs of the lockstep renderer
 and key them identically, so estimates match it up to fp accumulation order.
@@ -47,27 +46,23 @@ from izpi_tpu.spectral import cie
 
 LAMBDA_SALT = 0x7A3B
 # Iteration-bound ceiling for the all-static guarded fori scheduler: below
-# this the whole pool loop compiles to a fixed trip count with ZERO dynamic
-# while syncs (~60 ms each on this backend).
+# this the whole pool loop compiles to a fixed trip count with no
+# data-dependent predicate.
 # ceil(total·max_depth/pool)+max_depth bounds the true count (every non-tail
 # iteration runs all slots; the tail is ≤ max_depth deep). The bound is
 # pessimistic by the avg-depth/max-depth ratio, and each skipped 8-iteration
 # guard chunk still costs one lax.cond state copy (core.loops), so past this
-# ceiling an adaptive chunked while wins.
+# ceiling an adaptive chunked while is used.
 MAX_STATIC_ITERS = 256
 
 
 def _run_scheduler(cond, body, state0, total, n, max_depth,
                    loop: str = None):
-    """Pick the loop structure (see core.loops for the backend pathology
-    measurements that motivate each branch).
+    """Pick the loop structure (core.loops).
 
-    loop="while" (the default) is a plain lax.while_loop: round-4
-    measurements (scripts/experiments/pbr_body_bisect.py) showed the
-    chunked guard structure costing ~40% on pbr_ibl (2.21 s vs 1.56 s for
-    identical work), i.e. the historical ~60 ms/predicate sync no longer
-    reproduces at pool shapes — but the guarded forms are kept selectable
-    until every engine is re-measured. Callers resolve IZPI_POOL_LOOP at
+    loop="while" (the default) is a plain lax.while_loop; the guarded
+    forms stay selectable until they are measured on this card. Callers
+    resolve IZPI_POOL_LOOP at
     build time and pass it here (renderer.pool_runner); the env is read at
     trace time only for direct callers that pass nothing."""
     if loop is None:
@@ -99,8 +94,7 @@ def trace_pool(cs, meta, settings, intersect, nx: int, ny: int, spp: int,
     per-pixel path depth is uniform), "queue" (global sample counter +
     scatter-add deposits — immune to the pinned pool's convoy on deep
     pixels: a slot pinned to a deep pixel runs long after sky-pixel slots
-    drain; pbr_ibl measured 48% occupancy pinned vs ~100% queued, 10.1 vs
-    14.9 Mrays/s), or "auto": queue for scenes with strongly nonuniform
+    drain), or "auto": queue for scenes with strongly nonuniform
     depth (PBR under an enclosing emissive dome), pinned otherwise.
     Frames larger than the pool always queue."""
     n_pix = nx * ny
@@ -112,12 +106,9 @@ def trace_pool(cs, meta, settings, intersect, nx: int, ny: int, spp: int,
         scheduler = os.environ.get("IZPI_POOL_SCHED", "")
         if not scheduler:
             # The pinned pool convoys on per-pixel depth variance (a slot
-            # pinned to a deep pixel runs long after shallow slots drain):
-            # measured 48% occupancy on pbr_ibl and 32% on the dragon box.
-            # The queue's scatter-add + cumsum cost ~2-4 ms/iteration —
-            # small next to the occupancy win at production sizes — so
-            # queue is the default; pinned stays selectable for
-            # depth-uniform frames.
+            # pinned to a deep pixel runs long after shallow slots drain),
+            # so queue is the default; pinned stays selectable for
+            # depth-uniform frames. Both are untuned on this card.
             scheduler = "queue"
     if n_pix <= pool_size and scheduler == "pinned":
         return _trace_pool_pinned(

@@ -1,9 +1,9 @@
-"""Live render preview over HTTP — the TPU-era analog of the reference's
+"""Live render preview over HTTP — the analog of the reference's
 SDL/Fyne display windows (internal/display/display.go: the renderer pushes
 DisplayTile rows over a channel into a local window).
 
-A TPU host is headless; the natural "window" is a browser tab. The renderer
-already writes a progressive PNG per sample chunk (`--preview`);
+An accelerator host is headless; the natural "window" is a browser tab.
+The renderer already writes a progressive PNG per sample chunk (`--preview`);
 `PreviewServer` serves that file with an auto-refreshing page so any browser
 (or `watch curl`) follows the render live. Zero dependencies, one daemon
 thread, stdlib http.server only.

@@ -2,8 +2,8 @@
 
 The reference writes PNG via Go stdlib and EXR/HDR/PFM via OpenImageIO
 (internal/output/png.go, oiio.go); the ACES variant stamps ACES-container
-metadata (oiio.go:26-41). Here: PNG via PIL; EXR/HDR/PFM as small pure-python
-writers (no native imaging dependency exists in this environment).
+metadata (oiio.go:26-41). Here every format is a small numpy + zlib/struct
+codec, so the render path needs no imaging library.
 
 Reference output semantics preserved:
 - the PNG path applies gamma-2 + clamp(0,1) before quantization
@@ -42,11 +42,23 @@ def write(path: str, image: np.ndarray, mode: Optional[str] = None,
 def write_png(path: str, image: np.ndarray) -> None:
     """8-bit PNG with the reference's gamma-2 + clamp postfx
     (leader.go:178-183)."""
-    from PIL import Image
-
     img = postprocess.Pipeline([postprocess.Gamma(), postprocess.Clamp()]) \
         .apply(np.asarray(image, np.float64))
-    Image.fromarray((img * 255.0 + 0.5).astype(np.uint8)).save(path)
+    rgb = (img * 255.0 + 0.5).astype(np.uint8)
+    h, w, _ = rgb.shape
+    # Filter type 0 (None) on every scanline.
+    raw = np.concatenate([np.zeros((h, 1), np.uint8),
+                          rgb.reshape(h, w * 3)], axis=1).tobytes()
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    with open(path, "wb") as f:
+        f.write(_PNG_MAGIC)
+        f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)))
+        f.write(chunk(b"IDAT", zlib.compress(raw, 6)))
+        f.write(chunk(b"IEND", b""))
 
 
 # ---------------------------------------------------------------------------
@@ -179,15 +191,134 @@ def read_image(path: str) -> np.ndarray:
     if ext == "pfm":
         return _read_pfm(path)
     if ext == "hdr":
-        import imageio.v2 as imageio
-
-        return np.asarray(imageio.imread(path), np.float32)[..., :3]
+        return _read_hdr(path)
     if ext == "exr":
         return _read_exr(path)
-    from PIL import Image
+    return _read_png(path)
 
-    img = np.asarray(Image.open(path).convert("RGB"), np.float32) / 255.0
-    return img
+
+_PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
+_PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # colour type → samples
+
+
+def _png_unfilter(data: np.ndarray, h: int, stride: int, bpp: int):
+    """Undo the per-scanline PNG filters (None/Sub/Up/Average/Paeth)."""
+    rows = data.reshape(h, stride + 1)
+    out = np.zeros((h, stride), np.uint8)
+    prev = np.zeros(stride, np.int32)
+    for y in range(h):
+        ftype = rows[y, 0]
+        line = rows[y, 1:].astype(np.int32)
+        if ftype == 0:
+            cur = line
+        elif ftype == 2:
+            cur = (line + prev) & 0xFF
+        elif ftype == 1:
+            cur = line.reshape(-1, bpp).cumsum(axis=0).reshape(-1) & 0xFF
+        elif ftype in (3, 4):
+            cur = line.copy()
+            for x in range(stride):
+                a = cur[x - bpp] if x >= bpp else 0
+                b = prev[x]
+                if ftype == 3:
+                    pred = (a + b) >> 1
+                else:
+                    c = prev[x - bpp] if x >= bpp else 0
+                    p = a + b - c
+                    pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+                    pred = a if pa <= pb and pa <= pc else (
+                        b if pb <= pc else c)
+                cur[x] = (cur[x] + pred) & 0xFF
+        else:
+            raise ValueError(f"bad PNG filter type {ftype}")
+        out[y] = cur
+        prev = cur
+    return out
+
+
+def _read_png(path: str) -> np.ndarray:
+    """Non-interlaced PNG of 8 or 16 bits per sample, any colour type, as
+    raw [0,1] RGB (alpha dropped, gray broadcast)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != _PNG_MAGIC:
+        raise ValueError(f"{path}: not a PNG file")
+    pos, idat, palette = 8, [], None
+    while pos < len(data):
+        n, = struct.unpack(">I", data[pos:pos + 4])
+        tag, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
+        pos += 12 + n
+        if tag == b"IHDR":
+            w, h, depth, ctype, _, _, interlace = struct.unpack(
+                ">IIBBBBB", body)
+        elif tag == b"PLTE":
+            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
+        elif tag == b"IDAT":
+            idat.append(body)
+        elif tag == b"IEND":
+            break
+    if interlace or depth not in (8, 16) or ctype not in _PNG_CHANNELS:
+        raise ValueError(f"{path}: unsupported PNG (bit depth {depth}, "
+                         f"colour type {ctype}, interlace {interlace})")
+    n_ch = _PNG_CHANNELS[ctype]
+    bpp = n_ch * depth // 8
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    px = _png_unfilter(raw, h, w * bpp, bpp)
+    if depth == 16:
+        img = px.view(">u2").astype(np.float32) / 65535.0
+    else:
+        img = px.astype(np.float32) / 255.0
+    img = img.reshape(h, w, n_ch)
+    if ctype == 3:
+        return palette[px.reshape(h, w)].astype(np.float32) / 255.0
+    if n_ch <= 2:
+        return np.repeat(img[..., :1], 3, axis=-1)
+    return np.ascontiguousarray(img[..., :3])
+
+
+def _read_hdr(path: str) -> np.ndarray:
+    """Radiance RGBE (.hdr): flat or new-style run-length scanlines, the
+    standard `-Y h +X w` orientation."""
+    with open(path, "rb") as f:
+        data = f.read()
+    pos = 0
+    while True:                        # header lines up to the blank one
+        end = data.index(b"\n", pos)
+        line = data[pos:end].strip()
+        pos = end + 1
+        if not line:
+            break
+    end = data.index(b"\n", pos)
+    res = data[pos:end].split()
+    pos = end + 1
+    if len(res) != 4 or res[0] != b"-Y" or res[2] != b"+X":
+        raise ValueError(f"{path}: unsupported resolution line {res}")
+    h, w = int(res[1]), int(res[3])
+    buf = np.frombuffer(data, np.uint8)
+    rgbe = np.zeros((h, w, 4), np.uint8)
+    for y in range(h):
+        if (8 <= w < 32768 and buf[pos] == 2 and buf[pos + 1] == 2
+                and (int(buf[pos + 2]) << 8 | int(buf[pos + 3])) == w):
+            pos += 4
+            for c in range(4):
+                x = 0
+                while x < w:
+                    n = int(buf[pos])
+                    if n > 128:
+                        n -= 128
+                        rgbe[y, x:x + n, c] = buf[pos + 1]
+                        pos += 2
+                    else:
+                        rgbe[y, x:x + n, c] = buf[pos + 1:pos + 1 + n]
+                        pos += 1 + n
+                    x += n
+        else:
+            rgbe[y] = buf[pos:pos + 4 * w].reshape(w, 4)
+            pos += 4 * w
+    e = rgbe[..., 3].astype(np.int32)
+    scale = np.where(e > 0, np.ldexp(1.0, e - 136), 0.0)
+    return ((rgbe[..., :3].astype(np.float64) + 0.5)
+            * scale[..., None]).astype(np.float32)
 
 
 def _read_pfm(path: str) -> np.ndarray:

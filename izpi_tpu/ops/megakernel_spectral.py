@@ -11,13 +11,13 @@ transport of internal/sampler/spectral.go:47-80 instead of RGB:
   the spectral absorption coefficient at λ,
 - deposits are XYZ: radiance · (x̄,ȳ,z̄)(λ) / pdf(λ) (render/spectral.go:95).
 
-The TPU-first trick: every λ-dependent TABLE value is a PATH CONSTANT —
+The key trick: every λ-dependent TABLE value is a PATH CONSTANT —
 λ changes only when a slot starts a fresh camera sample. make_ray therefore
 evaluates all of them once per refill (each scene SPD at λ, the CIE triple,
 the background SPD, the λ-pdf) and the bounce loop carries them as per-lane
 scalars; the hot loop never gathers. Tables are evaluated as their exact
 piecewise-linear form: knots reconstructed from the 1 nm device grid
-(spd.to_device_grid) are unrolled as compare/fma segments on the VPU, which
+(spd.to_device_grid) are unrolled as compare/fma segments, which
 reproduces the oracle's device_spd_value up to f32 rounding.
 """
 
@@ -25,19 +25,17 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
-import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from izpi_tpu.materials import tables as mt
 from izpi_tpu.ops import threefry as tf
+from izpi_tpu.ops import megakernel as mk
 from izpi_tpu.ops.megakernel import (
-    MAX_UNROLL_PRIMS, LOOP_CHUNK, T_MIN, T_MAX, TWO_PI, CAMERA_SALT,
-    _add, _c, _dot, _intersect_static, _lights_pdf, _lights_sample,
-    _norm, _onb_from_w, _pick_replication, _reflect, _scale, _sel, _sub,
-    extract_static,
+    MAX_UNROLL_PRIMS, T_MIN, T_MAX, TWO_PI, CAMERA_SALT, _add, _c, _dot,
+    _intersect_static, _lights_pdf, _lights_sample, _norm, _onb_from_w,
+    _reflect, _scale, _sel, _sub, extract_static, launch, plan_launch,
+    run_while_live, slot_lanes,
 )
 from izpi_tpu.spectral import cie
 
@@ -157,7 +155,7 @@ def extract_spectral(cs, meta) -> SpectralStatic:
 
 
 # --------------------------------------------------------------------------
-# In-kernel λ machinery (all static-unrolled VPU math, no gathers)
+# In-kernel λ machinery (all static-unrolled math, no gathers)
 # --------------------------------------------------------------------------
 
 
@@ -237,24 +235,19 @@ def _sample_wavelength(u):
 
 
 def build_renderer(cs, meta, settings, nx: int, ny: int, spp: int,
-                   tile_s: int = 16, interpret: bool | None = None):
+                   interpret: bool = False):
     """Compile-time closure: fn(base_key, sample_offset) →
     (acc (n_pix, 3) f32 summed XYZ, nrays ()). Jittable. Streams match the
-    XLA spectral pool (wavefront.trace_pool spectral=True) per-sample."""
+    XLA spectral pool (wavefront.trace_pool spectral=True) per-sample.
+    interpret=True runs the kernel in the Pallas interpreter (CPU tests)."""
     static = extract_static(cs, meta)
     spec = extract_spectral(cs, meta)
     n_pix = nx * ny
     max_depth = int(settings.max_depth)
 
-    repl = _pick_replication(n_pix, spp, min_slots=8192)
-    spp_slot = spp // repl
-    n_slots = n_pix * repl
-    tile = tile_s * 128
-    n_grid = -(-n_slots // tile)
-    s_total = n_grid * tile_s
-
-    if interpret is None:
-        interpret = jax.default_backend() == "cpu"
+    lp = plan_launch(n_pix, spp, mk.BLOCK, mk.NUM_WARPS, mk.MIN_SLOTS)
+    spp_slot = spp // lp.repl
+    shape = (lp.block,)
 
     cam = static.cam
     prims = static.prims
@@ -265,18 +258,9 @@ def build_renderer(cs, meta, settings, nx: int, ny: int, spp: int,
     has_absorbing = any(ms["absorb_slot"] >= 0 for ms in spec.mat_spec)
 
     def kernel(seed_ref, off_ref, acc_x_ref, acc_y_ref, acc_z_ref, cnt_ref):
-        g = pl.program_id(0)
-        row = jax.lax.broadcasted_iota(jnp.int32, (tile_s, 128), 0)
-        col = jax.lax.broadcasted_iota(jnp.int32, (tile_s, 128), 1)
-        slot = g * tile + row * 128 + col
-        valid = slot < n_slots
-        pix = jnp.where(valid, slot % n_pix, 0)
-        replica = jnp.where(valid, slot // n_pix, 0)
-        px = (pix % nx).astype(jnp.float32)
-        py = (pix // nx).astype(jnp.float32)
-
-        b0 = jnp.full((tile_s, 128), seed_ref[0, 0], jnp.uint32)
-        b1 = jnp.full((tile_s, 128), seed_ref[0, 1], jnp.uint32)
+        valid, pix, replica, px, py = slot_lanes(lp, nx, n_pix)
+        b0 = jnp.full(shape, seed_ref[0, 0], jnp.uint32)
+        b1 = jnp.full(shape, seed_ref[0, 1], jnp.uint32)
         off = off_ref[0, 0]
 
         def make_ray(samp):
@@ -312,8 +296,8 @@ def build_renderer(cs, meta, settings, nx: int, ny: int, spp: int,
             cx, cy, cz = _cie_eval(lam)
             return o, d, tme, k0, k1, lam, lam_pdf, spdv, (cx, cy, cz)
 
-        zi = jnp.zeros((tile_s, 128), jnp.int32)
-        zf = jnp.zeros((tile_s, 128), jnp.float32)
+        zi = jnp.zeros(shape, jnp.int32)
+        zf = jnp.zeros(shape, jnp.float32)
         (o0, d0, tme0, k00, k10, lam0, lpdf0, spdv0, cie0) = make_ray(zi)
         live0 = valid & (spp_slot > 0)
 
@@ -350,7 +334,7 @@ def build_renderer(cs, meta, settings, nx: int, ny: int, spp: int,
 
             # --- material row: spectral albedo value at λ + params ---
             spec_val = zf
-            kindv = jnp.zeros((tile_s, 128), jnp.int32)
+            kindv = jnp.zeros(shape, jnp.int32)
             eta = zf + 1.0
             alpha = zf
             has_abs = jnp.zeros_like(hit)
@@ -504,56 +488,10 @@ def build_renderer(cs, meta, settings, nx: int, ny: int, spp: int,
             out["cie_z"] = jnp.where(issue, cie_n[2], st["cie_z"])
             return out
 
-        def outer_body(st):
-            return jax.lax.fori_loop(0, LOOP_CHUNK, lambda _, s: bounce(s),
-                                     st)
+        final = run_while_live(bounce, state0)
+        acc_x_ref[...] = final["acc"][0]
+        acc_y_ref[...] = final["acc"][1]
+        acc_z_ref[...] = final["acc"][2]
+        cnt_ref[...] = final["cnt"]
 
-        final = jax.lax.while_loop(lambda st: jnp.any(st["live"] != 0),
-                                   outer_body, state0)
-
-        acc_x_ref[:] = final["acc"][0]
-        acc_y_ref[:] = final["acc"][1]
-        acc_z_ref[:] = final["acc"][2]
-        cnt_ref[:] = final["cnt"]
-
-    grid_spec = pl.GridSpec(
-        grid=(n_grid,),
-        in_specs=[
-            pl.BlockSpec((1, 2), lambda i: (0, 0), memory_space=pltpu.SMEM),
-            pl.BlockSpec((1, 1), lambda i: (0, 0), memory_space=pltpu.SMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((tile_s, 128), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((tile_s, 128), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((tile_s, 128), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((tile_s, 128), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-    )
-    call = pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=[
-            jax.ShapeDtypeStruct((s_total, 128), jnp.float32),
-            jax.ShapeDtypeStruct((s_total, 128), jnp.float32),
-            jax.ShapeDtypeStruct((s_total, 128), jnp.float32),
-            jax.ShapeDtypeStruct((s_total, 128), jnp.int32),
-        ],
-        interpret=interpret,
-    )
-
-    def run(base_key, sample_offset):
-        seed = jnp.asarray(base_key, jnp.uint32).reshape(1, 2)
-        offa = jnp.asarray(sample_offset, jnp.uint32).reshape(1, 1)
-        ax, ay, az, cnt = call(seed, offa)
-        flat = jnp.stack(
-            [ax.reshape(-1)[:n_slots], ay.reshape(-1)[:n_slots],
-             az.reshape(-1)[:n_slots]], axis=-1)
-        acc = jnp.sum(flat.reshape(repl, n_pix, 3), axis=0)
-        nrays = jnp.sum(cnt.reshape(-1)[:n_slots])
-        return acc, nrays
-
-    return run
+    return launch(kernel, lp, n_pix, interpret, "izpi_megakernel_spectral")

@@ -9,9 +9,9 @@ bit-identical output against jax.random — which is what makes the megakernel
 reproduce the oracle integrator's sample streams exactly.
 
 Reference rationale: the Go tracer threads a per-goroutine LCG through the
-whole call graph (internal/fastrandom/fastrandom.go:13-47); the TPU design
+whole call graph (internal/fastrandom/fastrandom.go:13-47); this design
 keys every (pixel, sample, depth, use) tuple instead (core/rng.py), and this
-module is that keying evaluated on the VPU.
+module is that keying in plain uint32 arithmetic.
 """
 
 from __future__ import annotations
@@ -85,7 +85,7 @@ def uniforms_n(k0, k1, n: int):
     the counter vector [0..n-1] (zero-padded to even length) is split in
     half and the halves run through the cipher pairwise, so n words cost
     ceil(n/2) cipher calls — half of what the partitionable scheme's
-    one-cipher-per-word XOR construction pays on the VPU.
+    one-cipher-per-word XOR construction pays.
 
     k0, k1: uint32 arrays of any shape S. Returns a list of n arrays of
     shape S: entry i is uniform word i of the (n,) draw.

@@ -1,27 +1,27 @@
-"""Multi-chip scale-out: shard_map over a device mesh.
+"""Multi-device scale-out: shard_map over a device mesh.
 
 Replaces the reference's entire distribution stack (gRPC leader/worker tile
 streaming, mDNS discovery, asset streaming — internal/leader, internal/worker,
-internal/transport; SURVEY.md §2.6) with the TPU-native design:
+internal/transport; SURVEY.md §2.6) with a JAX design:
 
 - work is sharded over the mesh axis 'tiles' — the data-parallel axis. The
   production path (`render_distributed`) shards SAMPLES: every device runs
   the same persistent-pool wavefront over the whole frame on a disjoint
   sample range (sample_offset = device_index·spp_local) and the canvases
-  psum at the end — one (n_pix, 3) all-reduce over ICI replaces the
+  psum at the end — one (n_pix, 3) all-reduce replaces the
   reference's per-row gRPC streaming (render/remote.go:31-44). The simple
   lockstep sampler keeps the pixel-sharded variant as an oracle,
 - the compiled scene is replicated to every device (the analog of each worker
   fetching the whole scene and building its own BVH, worker/setup.go:155-388),
 - the ray counter is a psum (the analog of RenderEnd stats collection,
   renderer.go:203-211),
-- the differentiable path all-reduces parameter gradients over ICI
+- the differentiable path all-reduces parameter gradients
   (jax.grad over shard_map inserts the psum automatically).
 
 Multi-host: `initialize_multihost` wraps jax.distributed.initialize();
 run one process per host (cli.py --role leader/worker with --coordinator)
-and jax.devices() spans the pod slice — the same mesh code scales with the
-canvas psum riding ICI within a slice and DCN across slices. No bespoke RPC
+and jax.devices() spans every host's devices — the same mesh code scales,
+with XLA's collectives carrying the canvas psum. No bespoke RPC
 layer (leader/worker/assetprovider/discovery in the reference) is needed.
 """
 
@@ -56,11 +56,11 @@ def make_mesh(n_devices: Optional[int] = None) -> Mesh:
 def initialize_multihost(coordinator: Optional[str] = None,
                          num_processes: Optional[int] = None,
                          process_id: Optional[int] = None) -> int:
-    """Join (or form) a multi-host cluster — the TPU-native replacement for
+    """Join (or form) a multi-host cluster — the JAX replacement for
     the reference's mDNS discovery + gRPC setup handshake
-    (discovery/discovery.go, leader/setup.go:22-131). On GKE/Cloud-TPU the
-    arguments auto-detect from the environment; on bare hosts pass the
-    leader's address and this process's rank. Returns the process count."""
+    (discovery/discovery.go, leader/setup.go:22-131). Pass the leader's
+    address, the process count and this process's rank. Returns the
+    process count."""
     kwargs = {}
     if coordinator:
         kwargs["coordinator_address"] = coordinator
@@ -142,12 +142,8 @@ def build_pool_renderer(cs, meta, settings, intersect, nx: int, ny: int,
 
     @jax.jit
     def run(key):
-        # check_vma=False: the intersector may be the Pallas BVH kernel,
-        # whose pallas_call out_shapes carry no varying-axes info for the
-        # vma checker to propagate.
         fn = shard_map(shard_body, mesh=mesh,
-                       in_specs=(P(), P()), out_specs=(P(), P()),
-                       check_vma=False)
+                       in_specs=(P(), P()), out_specs=(P(), P()))
         return fn(cs, key)
 
     return run
@@ -161,14 +157,15 @@ def build_pool_renderer_prim_sharded(cs, meta, settings, nx: int, ny: int,
                                      shard_textures: bool = False):
     """Primitive-sharded production renderer — the >HBM-scene path (the
     reference streams triangles so every worker holds the whole scene,
-    worker/setup.go:97-153 + 292-306; on TPU the natural inversion shards
-    the primitive SoA so each chip holds 1/N of the geometry AND builds a
+    worker/setup.go:97-153 + 292-306; on a device mesh the natural
+    inversion shards the primitive SoA so each chip holds 1/N of the
+    geometry AND builds a
     per-shard BVH4 over its local slice — the sharded analog of each
     worker's post-streaming NewBVH4 build).
 
     Unlike sample sharding, RAYS ARE REPLICATED: every device runs the
     identical pool over the full sample range against its local prims, the
-    closest hit reduces over ICI inside every bounce
+    closest hit reduces across devices inside every bounce
     (make_sharded_intersector), and the identical replicated loop keeps the
     while-loop condition in lockstep — collectives inside the bounce loop
     would deadlock otherwise. PBR is supported: the winner's GLOBAL prim id
@@ -230,6 +227,30 @@ def strip_replicated_geometry(cs):
         vn=one(p.vn), has_vn=one(p.has_vn)))
 
 
+def build_distributed_runner(context, nx: int, ny: int, spp: int,
+                             mesh: Mesh,
+                             settings: path_mod.RenderSettings,
+                             sampler_type: str = "colour",
+                             shard_prims: bool = False,
+                             shard_textures: bool = False):
+    """The jitted fn(key) -> (acc, rays) that render_distributed runs, and
+    the spp it renders (rounded up to a multiple of the device count when
+    samples are sharded). Compiling it ahead (`run.lower(key).compile()`)
+    fills the persistent compile cache for a later render."""
+    cs, meta, intersect = context.cs, context.meta, context.intersect
+    spectral = meta.spectral or sampler_type == "spectral"
+    if shard_prims:
+        # Geometry sharded 1/N per chip, samples replicated (SURVEY §2.6
+        # "geometry streaming"): the >HBM-scene mode.
+        return build_pool_renderer_prim_sharded(
+            cs, meta, settings, nx, ny, mesh, spp, spectral=spectral,
+            shard_textures=shard_textures), spp
+    n_dev = mesh.devices.size
+    spp_eff = -(-spp // n_dev) * n_dev
+    return build_pool_renderer(cs, meta, settings, intersect, nx, ny, mesh,
+                               spp_eff // n_dev, spectral=spectral), spp_eff
+
+
 def render_distributed(scene: st.Scene, nx: int, ny: int, spp: int,
                        mesh: Optional[Mesh] = None,
                        settings: Optional[path_mod.RenderSettings] = None,
@@ -254,21 +275,11 @@ def render_distributed(scene: st.Scene, nx: int, ny: int, spp: int,
     mesh = mesh or make_mesh()
     if context is None:
         context = renderer_mod.RenderContext(scene)
-    cs, meta, intersect = context.cs, context.meta, context.intersect
-    n_dev = mesh.devices.size
+    meta = context.meta
     spectral = meta.spectral or sampler_type == "spectral"
-
-    if shard_prims:
-        # Geometry sharded 1/N per chip, samples replicated (SURVEY §2.6
-        # "geometry streaming"): the >HBM-scene mode.
-        spp_eff = spp
-        run = build_pool_renderer_prim_sharded(
-            cs, meta, settings, nx, ny, mesh, spp, spectral=spectral,
-            shard_textures=shard_textures)
-    else:
-        spp_eff = -(-spp // n_dev) * n_dev
-        run = build_pool_renderer(cs, meta, settings, intersect, nx, ny,
-                                  mesh, spp_eff // n_dev, spectral=spectral)
+    run, spp_eff = build_distributed_runner(
+        context, nx, ny, spp, mesh, settings, sampler_type=sampler_type,
+        shard_prims=shard_prims, shard_textures=shard_textures)
     key = rng.render_key(seed)
     if warmup:
         jax.block_until_ready(run(key))
@@ -323,8 +334,8 @@ class TexShards:
     """Texture stacks split over the mesh — the >HBM-texture-set path (the
     reference streams texture planes to workers in 64 KiB chunks so every
     worker holds them all, assetprovider.go:122-198 + worker/setup.go:48-95;
-    on TPU the natural inversion shards the image/combined stacks over the
-    device axis and merges lookups with one psum per evaluation —
+    on a device mesh the natural inversion shards the image/combined stacks
+    over the device axis and merges lookups with one psum per evaluation —
     texture.tables.eval_rgb sharded mode). Leading axis: n_dev."""
 
     def __init__(self, images, combined, img_base, combo_base):
@@ -399,14 +410,15 @@ def make_sharded_intersector(cs, mesh: Mesh, use_bvh: Optional[bool] = None,
     """Primitive-sharded closest hit — the >HBM-scene path (SURVEY §2.6
     "geometry streaming": the reference streams triangles to every worker
     which then builds its own BVH4, leader/leader.go:34 +
-    worker/setup.go:97-153,292-306; on TPU the natural design shards the
-    primitive SoA across the mesh so each chip holds 1/N of the scene and
+    worker/setup.go:97-153,292-306; on a device mesh the natural design
+    shards the primitive SoA across the mesh so each chip holds 1/N of the
+    scene and
     traverses a BVH4 built over its local slice).
 
     Usable INSIDE a shard_map body whose rays are replicated over
     TILE_AXIS: each shard intersects its local prims (per-shard BVH4
     traversal for big slices, brute force for small ones), the winning t
-    reduces with a pmin over ICI, ties break to the lowest shard (exactly
+    reduces with a pmin across devices, ties break to the lowest shard (exactly
     one winner), and the winner's full shading record psums to everyone.
     prim_idx comes back in the ORIGINAL global numbering, so the small
     replicated shading tables (strip_replicated_geometry) index directly.
@@ -599,7 +611,7 @@ def build_train_step(cs, meta, settings, intersect, nx, ny, mesh: Mesh,
     """Returns jitted fn(params, xs, ys, target, key) -> (loss, grads).
 
     Pixels sharded over 'tiles'; loss is the global mean squared error; grads
-    are identical (all-reduced) on every device — the ICI gradient
+    are identical (all-reduced) on every device — the gradient
     all-reduce that replaces nothing in izpi (it has no differentiable path)
     but fulfils the BASELINE contract.
     """

@@ -1,6 +1,7 @@
 """Render driver: pixels → ray batches → accumulated image.
 
-The analog of internal/render/renderer.go + rgb.go, redesigned for TPU:
+The analog of internal/render/renderer.go + rgb.go, redesigned for an
+accelerator:
 instead of goroutines pulling spiral-ordered tiles from a channel
 (renderer.go:112-151), the whole image is one ray wavefront (optionally
 chunked by rows to bound memory), and samples-per-pixel is a host loop of
@@ -111,57 +112,42 @@ def _render_aov(cs, meta, settings, intersect, nx, ny, spp, seed,
                         seconds=seconds)
 
 
-# Below this primitive count brute force wins on TPU: a dense N×P pass is
-# pure VPU/MXU work with zero divergence, while the BVH kernel pays per-
-# launch fixed costs and — for incoherent bounce rays on a small tree —
-# union saturation (every tile visits most leaves). MEASURED (round-5
-# engine sweep, scripts/experiments/r5_engine_sweep.py, 128²@64 tri
-# soups): P=512 pool+mxu 3.2 vs pool+bvh 4.0 Mrays/s (≈tie), P=2048
-# pool+mxu 1.4 vs pool+bvh 0.2 (brute wins 7× — the tree is far below the
-# re-binned scheduler's engagement size, REBIN_NODES, so the kernel runs
-# saturated unions). The brute MXU pass stays the default until the tree
-# is big enough that confinement machinery engages; the Pallas megakernel
-# outranks both whenever the scene is eligible (P=512: 10.7).
+# Above this primitive count the scene is traversed through a BVH4
+# (accel.traverse); at or below it small scenes use the unrolled
+# intersector and mid-size ones the matrix-form brute force. Set on the
+# previous accelerator; untuned on this card.
 BVH_THRESHOLD = 16384
+
+
+def intersector_kind(n_prims: int, use_bvh: Optional[bool] = None) -> str:
+    """Which intersector `prepare` builds: "bvh" (accel.traverse),
+    "unrolled" (baked per-prim tests) or "brute" (matrix-form brute force)."""
+    if use_bvh is None:
+        use_bvh = n_prims > BVH_THRESHOLD
+    if use_bvh:
+        return "bvh"
+    if n_prims <= prim_mod.UNROLL_MAX_PRIMS:
+        return "unrolled"
+    return "brute"
 
 
 def prepare(scene: st.Scene, use_bvh: Optional[bool] = None, seed: int = 1):
     """Compile a scene and pick/build its intersector.
     Returns (cs, meta, intersect)."""
     cs, meta = compile_scene(scene)
-    if use_bvh is None:
-        use_bvh = meta.n_prims > BVH_THRESHOLD
-    if use_bvh:
-        if jax.default_backend() != "cpu":
-            # Pallas union-traversal kernel: VMEM-resident nodes, DMA'd
-            # leaf blocks (ops.bvh_kernel) — the only path that scales to
-            # dragon-class meshes on TPU (the jnp gather traversal is kept
-            # as the CPU/test path and correctness oracle). A Mosaic compile
-            # or build-validation failure falls back to the jnp traversal
-            # with a warning, mirroring the megakernel's _mega_broken
-            # pattern — a render must degrade, not abort.
-            try:
-                from izpi_tpu.ops import bvh_kernel
-
-                cs, intersect = bvh_kernel.attach(cs, seed=seed)
-                return cs, meta, intersect
-            except Exception as exc:
-                import warnings
-
-                warnings.warn(
-                    f"Pallas BVH kernel attach failed; falling back to the "
-                    f"jnp gather traversal: {type(exc).__name__}: {exc}")
+    kind = intersector_kind(meta.n_prims, use_bvh)
+    if kind == "bvh":
         from izpi_tpu.accel import traverse
 
         cs, intersect = traverse.attach(cs, seed=seed)
-    elif meta.n_prims <= prim_mod.UNROLL_MAX_PRIMS:
+    elif kind == "unrolled":
         # Tiny scenes: python-unrolled per-prim tests with baked constants —
         # finalize_hit's gathers alone cost more than the whole scene's
         # t-tests at this size (geometry.primitives.make_unrolled_intersector).
         intersect = prim_mod.make_unrolled_intersector(cs.prims)
     else:
-        # MXU-formulated brute force: the ray×prim tests ride the systolic
-        # array instead of the VPU (geometry.mxu_intersect).
+        # Brute force written as matrix products over the primitive tables
+        # (geometry.mxu_intersect).
         from izpi_tpu.geometry import mxu_intersect
 
         tables = mxu_intersect.build_tables(cs.prims)
@@ -185,6 +171,7 @@ class RenderContext:
         t0 = time_mod.perf_counter()
         self.cs, self.meta, self.intersect = prepare(scene, use_bvh=use_bvh,
                                                      seed=seed)
+        self.intersector = intersector_kind(self.meta.n_prims, use_bvh)
         self.build_seconds = time_mod.perf_counter() - t0
         self._runners = {}
 
@@ -228,10 +215,11 @@ class RenderContext:
 
     def mega_runner(self, nx: int, ny: int, n_spp: int,
                     settings: path_mod.RenderSettings,
-                    interpret: Optional[bool] = None,
+                    interpret: bool = False,
                     spectral: bool = False):
         """Pallas megakernel runner (ops.megakernel / megakernel_spectral):
-        whole pool loop in one kernel, scene baked in as constants.
+        whole pool loop in one Triton kernel, scene baked in as constants.
+        interpret=True runs it in the Pallas interpreter (CPU tests).
         Returns fn(key, offset)."""
         cache_key = ("mega", nx, ny, n_spp, settings, interpret, spectral)
         run = self._runners.get(cache_key)
@@ -246,6 +234,25 @@ class RenderContext:
                 interpret=interpret))
             self._runners[cache_key] = run
         return run
+
+
+def engine(context: RenderContext, mode: str = "wavefront",
+           spectral: bool = False) -> str:
+    """The engine `render` runs for this context and mode: "mega" (Pallas
+    megakernel), "pool" (XLA wavefront pool) or "simple" (lockstep
+    oracle). mode="wavefront" picks the megakernel on a GPU when the scene
+    qualifies; there is no fallback if it then fails."""
+    if mode == "mega":
+        if not context.mega_supported(spectral=spectral):
+            raise ValueError("scene not supported by the megakernel "
+                             "(media/PBR/image/noise or too many primitives)")
+        return "mega"
+    if (mode == "wavefront" and jax.default_backend() == "gpu"
+            and context.mega_supported(spectral=spectral)):
+        return "mega"
+    if mode in ("wavefront", "pool") or spectral:
+        return "pool"
+    return "simple"
 
 
 def render(scene: Optional[st.Scene], nx: int, ny: int, spp: int,
@@ -263,8 +270,8 @@ def render(scene: Optional[st.Scene], nx: int, ny: int, spp: int,
            verbose: bool = False) -> RenderResult:
     """Render a scene on the current default device.
 
-    mode: "wavefront" (persistent path pool; auto-upgrades to the Pallas
-    megakernel on TPU when the scene qualifies), "mega" (megakernel,
+    mode: "wavefront" (persistent path pool; upgrades to the Pallas
+    megakernel on a GPU when the scene qualifies), "mega" (megakernel,
     required), "pool" (XLA wavefront pool, megakernel upgrade disabled —
     for engine-policy measurement), or "simple" (lockstep batch per sample
     — the straightforward analog of path.trace, kept as the oracle and for
@@ -291,60 +298,20 @@ def render(scene: Optional[st.Scene], nx: int, ny: int, spp: int,
                            sampler_type, ink)
 
     spectral = meta.spectral or sampler_type == "spectral"
-    # The Pallas megakernel is the fast path whenever the scene qualifies
-    # (ops.megakernel.eligible / megakernel_spectral.eligible); mode="mega"
-    # forces it, mode="wavefront" auto-upgrades on TPU, and the XLA pool
-    # remains the fallback/oracle.
-    use_mega = (
-        mode == "mega"
-        or (mode == "wavefront" and jax.default_backend() != "cpu"
-            and context.mega_supported(spectral=spectral))
-    )
-    if mode == "mega" and not context.mega_supported(spectral=spectral):
-        raise ValueError("scene not supported by the megakernel "
-                         "(media/PBR/image/noise or too many primitives)")
-    if use_mega or mode in ("wavefront", "pool") or spectral:
+    eng = engine(context, mode, spectral)
+    if eng != "simple":
         if pool_size is None:
-            # Larger pools amortize per-iteration fixed costs (kernel-launch
-            # overhead in the BVH path, pool glue everywhere); per-bounce
-            # state is ~100 B/ray so even 1<<18 slots is ~25 MB.
+            # Larger pools amortize per-iteration fixed costs; per-bounce
+            # state is ~100 B/ray so even 1<<18 slots is ~25 MB. The cap was
+            # set on the previous accelerator; untuned on this card.
             pool_size = min(nx * ny * spp, 1 << 18)
         base_key = rng.render_key(seed)
         bg_spd_id = meta.spectral_background_spd or 0
-        if use_mega:
-            def run(key, n_spp, pool, sample_offset,
-                    _ctx=context, _nx=nx, _ny=ny, _settings=settings,
-                    _spectral=spectral, _bg=bg_spd_id, _mode=mode):
-                # Mosaic failures are keyed per runner shape: a failure on
-                # one (nx, ny, spp) — e.g. a small final chunk — must not
-                # kill the fast path for every other shape on this context.
-                broken = getattr(_ctx, "_mega_broken", None)
-                if broken is None:
-                    broken = _ctx._mega_broken = set()
-                mega_key = (_nx, _ny, n_spp, _settings, _spectral)
-                if mega_key not in broken:
-                    try:
-                        mega = _ctx.mega_runner(_nx, _ny, n_spp, _settings,
-                                                spectral=_spectral)
-                        out = mega(key, sample_offset)
-                        jax.block_until_ready(out)
-                        return out
-                    except Exception as exc:
-                        # Mosaic compile/runtime failure: fall back to the
-                        # XLA wavefront pool for this shape (unless the
-                        # caller demanded the megakernel) — noisily, so a
-                        # quiet permanent perf downgrade can't hide a bug.
-                        if _mode == "mega":
-                            raise
-                        import warnings
-
-                        warnings.warn(
-                            f"megakernel failed for shape {mega_key[:3]}; "
-                            f"falling back to the XLA wavefront pool: "
-                            f"{type(exc).__name__}: {exc}")
-                        broken.add(mega_key)
-                fb = _ctx.pool_runner(_nx, _ny, _spectral, _bg, _settings)
-                return fb(key, n_spp, pool, sample_offset)
+        if eng == "mega":
+            def run(key, n_spp, pool, sample_offset):
+                mega = context.mega_runner(nx, ny, n_spp, settings,
+                                           spectral=spectral)
+                return mega(key, sample_offset)
         else:
             run = context.pool_runner(nx, ny, spectral, bg_spd_id, settings)
 
@@ -390,7 +357,7 @@ def render(scene: Optional[st.Scene], nx: int, ny: int, spp: int,
             acc, nrays = run(base_key, n_chunk, pool_size, jnp.int32(off))
             acc_total = acc_total + np.asarray(acc)
             if first_chunk_seconds is None:
-                # First chunk includes trace+compile (XLA/Mosaic).
+                # First chunk includes trace+compile.
                 first_chunk_seconds = time_mod.perf_counter() - tc
             total_rays += int(nrays)
             if checkpoint_path:
@@ -450,7 +417,7 @@ def render(scene: Optional[st.Scene], nx: int, ny: int, spp: int,
 
     # The whole spp loop runs on-device (one dispatch per row chunk): a
     # fori_loop over samples accumulating into the canvas block. This is the
-    # TPU answer to the reference's per-pixel `for s in spp` (rgb.go:32-38).
+    # device answer to the reference's per-pixel `for s in spp` (rgb.go:32-38).
     @partial(jax.jit, static_argnames=("n_rows", "n_spp"))
     def chunk_fn(y0, key, n_rows, n_spp):
         ys = y0 + jnp.repeat(jnp.arange(n_rows, dtype=jnp.int32), nx)

@@ -9,8 +9,8 @@ object graph instead).
 
 Geometric wrappers (Translate/RotateY/FlipNormals, reference:
 internal/hitable/translate.go, rotate_y.go, flip_normals.go) are *baked* at
-compile time: the reference transforms each ray into object space per hit; on
-TPU we transform the geometry once — identical intersections for rigid
+compile time: the reference transforms each ray into object space per hit;
+here the geometry is transformed once — identical intersections for rigid
 transforms, with no per-ray work.
 """
 

@@ -11,6 +11,7 @@ All evaluation functions are jnp and batched over arbitrary leading dims.
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -133,5 +134,6 @@ def wavelength_to_rgb(lam):
     spectral.WavelengthToRGB (spectral.go:256)."""
     x, y, z = get_cie_values(lam)
     xyz = jnp.stack([x, y, z], axis=-1)
-    rgb = xyz @ jnp.asarray(XYZ_TO_SRGB, dtype=jnp.float32).T
+    rgb = jnp.matmul(xyz, jnp.asarray(XYZ_TO_SRGB, dtype=jnp.float32).T,
+                     precision=jax.lax.Precision.HIGHEST)
     return jnp.clip(rgb, 0.0, 1.0)

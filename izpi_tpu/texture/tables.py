@@ -72,8 +72,8 @@ def eval_rgb(tex: Textures, tex_id, u, v, p,
 
     tex_id: (N,) int32 (>=0); u, v: (N,); p: (N,3). Returns (N,3).
     All kinds present in the scene are computed and selected — a handful of
-    VPU ops plus one gather each, far cheaper than divergent control flow on
-    TPU. The has_* flags are STATIC scene facts (SceneMeta) that let XLA
+    elementwise ops plus one gather each, instead of divergent control
+    flow. The has_* flags are STATIC scene facts (SceneMeta) that let XLA
     drop whole evaluators: Perlin turbulence in particular costs ~56 gathers
     per ray and must be compiled out of noise-free scenes.
     """
@@ -100,7 +100,7 @@ def eval_rgb(tex: Textures, tex_id, u, v, p,
             img = image_lookup(tex.images, tex.img_w, tex.img_h, gid, u, v)
         else:
             # Sharded stack: each shard resolves the ids it owns, everyone
-            # else contributes zero, one psum merges — the TPU answer to
+            # else contributes zero, one psum merges — the device answer to
             # the reference's per-worker 64 KiB texture streaming
             # (assetprovider.go:122-198): the set never has to fit on one
             # chip. Only the image-branch tensor reduces; constant/checker/

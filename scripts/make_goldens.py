@@ -7,7 +7,7 @@ Monte-Carlo noise bounds of the committed golden (SURVEY §4: golden-image
 allclose tests — the reference has none; Go-parity regeneration procedure is
 documented in the module docstring of tests/test_golden.py).
 
-Run on any backend (the TPU chip is ~100× faster): python scripts/make_goldens.py
+Run on any backend (a GPU is much faster): python scripts/make_goldens.py
 """
 
 from __future__ import annotations

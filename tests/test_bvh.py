@@ -5,6 +5,9 @@ on a large random scene."""
 
 import numpy as np
 import jax.numpy as jnp
+import pytest
+
+from izpi_tpu import camera as camera_mod
 
 from izpi_tpu.accel import bvh_build, traverse
 from izpi_tpu.geometry import primitives as prim
@@ -126,7 +129,7 @@ def test_stack_occupancy_computed_and_fits():
 
 def test_pathological_tree_raises_at_build():
     """A constructed over-deep tree fails validate(stack_depth=...) instead
-    of silently dropping hits on the device (VERDICT r1 weak #3)."""
+    of silently dropping hits on the device."""
     # A chain of nodes with 4 internal children each, only one of which
     # continues deep: worst-case occupancy grows by 3 per level (visit the
     # deep child while its 3 siblings are still stacked).
@@ -167,3 +170,102 @@ def test_pathological_tree_raises_at_build():
     assert any("stack" in e for e in errors)
     # ...and passes with a deep enough stack.
     assert bvh_build.validate(arrays, n_prims, stack_depth=256) == []
+
+
+# --- accel.traverse vs brute force over scene and ray classes -------------
+
+
+def _tri_soup_scene(n, seed):
+    """`n` separate Triangle prims (not one mesh) in a 10-unit cube."""
+    rs = np.random.RandomState(seed)
+    mat = st.Lambertian(albedo=st.ConstantTexture((0.5, 0.5, 0.5)))
+    tris = []
+    for _ in range(n):
+        v0 = rs.rand(3) * 10.0
+        tris.append(st.Triangle(v0=tuple(v0), v1=tuple(v0 + rs.rand(3)),
+                                v2=tuple(v0 + rs.rand(3)), material=mat))
+    return st.Scene(world=tris, camera=st.Camera(look_from=(5, 5, -15),
+                                                 look_at=(5, 5, 5)))
+
+
+def _procedural_scene(n):
+    from izpi_tpu.geometry import procedural
+
+    tris = procedural.bumpy_blob(n)
+    mesh = st.TriangleMesh(
+        vertices=tris,
+        material=st.Lambertian(albedo=st.ConstantTexture((0.5, 0.5, 0.5))))
+    return st.Scene(world=[mesh], camera=st.Camera(look_from=(0, 0, -4),
+                                                   look_at=(0, 0, 0)))
+
+
+def _random_rays(n, seed, lo, hi):
+    rs = np.random.RandomState(seed)
+    o = jnp.asarray(lo + rs.rand(n, 3) * (hi - lo), jnp.float32)
+    d = jnp.asarray(rs.randn(n, 3), jnp.float32)
+    return o, d, jnp.asarray(rs.rand(n), jnp.float32)
+
+
+def _camera_rays(cs, n, seed):
+    rs = np.random.RandomState(seed)
+    return camera_mod.get_rays(
+        cs.camera, jnp.asarray(rs.rand(n), jnp.float32),
+        jnp.asarray(rs.rand(n), jnp.float32),
+        jnp.asarray(rs.rand(n, 3), jnp.float32))
+
+
+# name -> (scene factory, ray factory(cs2), t_max)
+TRAVERSE_CASES = {
+    "random_tris": (lambda: _random_tri_scene(3000, seed=11),
+                    lambda cs: _random_rays(512, 3, -12.0, 12.0), prim.T_MAX),
+    "mixed_kinds_cornell": (cornell_box,
+                            lambda cs: _random_rays(512, 5, -400.0, 400.0),
+                            prim.T_MAX),
+    "shrinking_t_window": (lambda: _random_tri_scene(512, seed=2),
+                           lambda cs: _random_rays(256, 9, -12.0, 12.0), 2.0),
+    "camera_rays": (cornell_box, lambda cs: _camera_rays(cs, 1024, 0),
+                    prim.T_MAX),
+    "incoherent_rays": (cornell_box,
+                        lambda cs: _random_rays(1024, 1, 0.0, 555.0),
+                        prim.T_MAX),
+    "triangle_mesh_blocks": (lambda: _tri_soup_scene(300, 3),
+                             lambda cs: _random_rays(1024, 4, -1.0, 11.0),
+                             prim.T_MAX),
+    "procedural_submesh_20k": (lambda: _procedural_scene(20_000),
+                               lambda cs: _camera_rays(cs, 1024, 6),
+                               prim.T_MAX),
+}
+
+
+@pytest.mark.parametrize("case", sorted(TRAVERSE_CASES))
+def test_traverse_matches_brute(case):
+    """The XLA traversal (the BVH path on every backend) agrees with brute
+    force: same hits, t to 1e-5 relative, equal prim ids except at ties."""
+    make_scene, make_rays, t_max = TRAVERSE_CASES[case]
+    cs, _ = compile_scene(make_scene())
+    cs2, inter = traverse.attach(cs, seed=1)
+    o, d, tm = make_rays(cs2)
+    got = inter(o, d, tm, 1e-3, t_max)
+    want = prim.intersect_brute(cs2.prims, o, d, tm, 1e-3, t_max)
+    h = np.asarray(want.hit)
+    np.testing.assert_array_equal(np.asarray(got.hit), h)
+    assert h.any()
+    gt, wt = np.asarray(got.t)[h], np.asarray(want.t)[h]
+    assert (gt <= t_max).all()
+    np.testing.assert_allclose(gt, wt, rtol=1e-5)
+    gi, wi = np.asarray(got.prim_idx)[h], np.asarray(want.prim_idx)[h]
+    tie = np.isclose(gt, wt, rtol=1e-6)
+    assert (tie | (gi == wi)).all()
+
+
+def test_traverse_plain_while_matches_chunked(monkeypatch):
+    """LOOP_CHUNK only sets how often the loop predicate is read: a plain
+    while_loop (chunk 1) returns the same hits as the chunked loop."""
+    cs, _ = compile_scene(_random_tri_scene(2000, seed=21))
+    cs2, inter = traverse.attach(cs, seed=1)
+    o, d, tm = _random_rays(512, 8, -12.0, 12.0)
+    chunked = inter(o, d, tm, 1e-3, prim.T_MAX)
+    monkeypatch.setattr(traverse, "LOOP_CHUNK", 1)
+    plain = inter(o, d, tm, 1e-3, prim.T_MAX)
+    for a, b in zip(chunked, plain):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))

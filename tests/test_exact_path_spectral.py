@@ -1,4 +1,4 @@
-"""Exact per-engine SPECTRAL estimator tests (VERDICT r3 missing #1).
+"""Exact per-engine SPECTRAL estimator tests.
 
 An INDEPENDENT float64 scalar reimplementation of the reference's spectral
 estimator chain — CIE-Y wavelength importance sampling by CDF inversion

@@ -1,11 +1,11 @@
-"""Golden-image regression tests (SURVEY §4, VERDICT r1 missing #5).
+"""Golden-image regression tests (SURVEY §4).
 
 Each committed golden (tests/data/goldens/*.npz, generated by
 scripts/make_goldens.py with the pool estimator at high spp) pins the
 converged radiance of one BASELINE-class config. Every engine — lockstep
 oracle, wavefront pool, Pallas megakernels (interpret mode on CPU), brute /
-MXU / BVH intersectors — must reproduce it within Monte-Carlo noise, so a
-silent estimator regression that hits all engines equally breaks CI.
+matrix-form / BVH intersectors — must reproduce it within Monte-Carlo noise,
+so a silent estimator regression that hits all engines equally breaks CI.
 
 Go-parity procedure (for an environment that has a Go toolchain, which this
 image does not): build the reference with `make build` (GOEXPERIMENT=simd),

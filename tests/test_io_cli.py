@@ -32,7 +32,78 @@ def test_pfm_hdr_roundtrip(tmp_path):
     output.write_pfm(p, img)
     np.testing.assert_allclose(output._read_pfm(p), img, atol=1e-7)
     p2 = str(tmp_path / "t.hdr")
-    output.write_hdr(p2, img)  # write-only smoke (reader needs imageio plugin)
+    output.write_hdr(p2, img)
+    # RGBE keeps an 8-bit mantissa per pixel's brightest channel.
+    np.testing.assert_allclose(output.read_image(p2), img,
+                               atol=img.max() / 128)
+
+
+def test_png_roundtrip_without_pil(tmp_path):
+    """PNG write and read use only zlib/struct: both work in a process in
+    which PIL cannot be imported."""
+    p = str(tmp_path / "t.png")
+    code = (
+        "import sys; sys.modules['PIL'] = None\n"
+        "import numpy as np\n"
+        "from izpi_tpu.io import output\n"
+        "img = np.random.RandomState(5).rand(6, 7, 3)\n"
+        f"output.write_png({p!r}, img)\n"
+        f"back = output.read_image({p!r})\n"
+        "q = np.round(np.sqrt(np.clip(img, 0, 1)) * 255) / 255\n"
+        "assert back.shape == (6, 7, 3), back.shape\n"
+        "assert np.abs(back - q).max() < 1e-6\n"
+        "assert 'PIL' not in [m.split('.')[0] for m in sys.modules\n"
+        "                     if sys.modules[m] is not None]\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=120,
+                       cwd=os.path.dirname(os.path.dirname(
+                           os.path.abspath(__file__))))
+    assert r.returncode == 0, r.stderr[-2000:]
+
+
+def test_png_reader_filters(tmp_path):
+    """Every PNG scanline filter (None, Sub, Up, Average, Paeth) decodes to
+    the pixels it encoded."""
+    rs = np.random.RandomState(6)
+    h, w = 5, 4
+    px = rs.randint(0, 256, size=(h, w, 3)).astype(np.int32)
+    bpp, prev = 3, np.zeros(w * 3, np.int32)
+    rows = []
+    for y, ftype in enumerate([0, 1, 2, 3, 4]):
+        cur = px[y].reshape(-1)
+        left = np.concatenate([np.zeros(bpp, np.int32), cur[:-bpp]])
+        upleft = np.concatenate([np.zeros(bpp, np.int32), prev[:-bpp]])
+        if ftype == 0:
+            pred = np.zeros_like(cur)
+        elif ftype == 1:
+            pred = left
+        elif ftype == 2:
+            pred = prev
+        elif ftype == 3:
+            pred = (left + prev) >> 1
+        else:
+            p = left + prev - upleft
+            pa, pb, pc = np.abs(p - left), np.abs(p - prev), np.abs(p - upleft)
+            pred = np.where((pa <= pb) & (pa <= pc), left,
+                            np.where(pb <= pc, prev, upleft))
+        rows.append(bytes([ftype]) + ((cur - pred) & 0xFF).astype(
+            np.uint8).tobytes())
+        prev = cur
+    import struct
+    import zlib
+
+    def chunk(tag, data):
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    p = tmp_path / "f.png"
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)
+    p.write_bytes(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr)
+                  + chunk(b"IDAT", zlib.compress(b"".join(rows)))
+                  + chunk(b"IEND", b""))
+    np.testing.assert_array_equal(
+        np.round(output.read_image(str(p)) * 255).astype(np.int32), px)
 
 
 def test_postprocess_pipeline():

@@ -1,4 +1,4 @@
-"""MXU matmul intersector vs the VPU brute-force oracle."""
+"""Matrix-form intersector vs the elementwise brute-force oracle."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -67,7 +67,7 @@ def test_mxu_render_matches_brute_render():
     cs, meta = cc(scene)
     oracle_intersect = path_mod.make_brute_intersector(cs)
     import izpi_tpu.render.renderer as rmod
-    a = renderer.render(scene, 16, 16, 4, settings=s, seed=3)  # MXU (default)
+    a = renderer.render(scene, 16, 16, 4, settings=s, seed=3)  # default
     # Monkeypatch prepare to the oracle for comparison.
     orig = rmod.prepare
 

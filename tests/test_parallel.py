@@ -174,7 +174,7 @@ def test_prim_sharded_render_matches_replicated():
 
 
 def test_prim_sharded_render_pbr_matches_replicated():
-    """PBR scenes render prim-sharded now (VERDICT r3 #7): the winner's
+    """PBR scenes render prim-sharded: the winner's
     GLOBAL prim id indexes the replicated kind/tb shading tables after the
     psum, so normal-mapped PBR shading works with geometry 1/N per device."""
     from izpi_tpu.integrator import path as path_mod
@@ -209,7 +209,7 @@ def test_prim_sharded_bvh_render_matches_replicated():
 
 
 def test_prim_and_texture_sharded_render_matches_replicated():
-    """Texture-sharded rendering (VERDICT r4 missing #2 — the >HBM texture
+    """Texture-sharded rendering (the >HBM texture
     set path): image + combined stacks split over the mesh with per-lookup
     mask + psum (texture.tables sharded mode) must reproduce the replicated
     render exactly. pbr_ibl carries multiple image maps, so every shard
