@@ -307,6 +307,61 @@ def _sphere_test(pr, o, d, time, t_min, t_max, aa=None):
     return t, ok, n
 
 
+def _prim_aabb(pr):
+    """Conservative f64 AABB of one static primitive, padded so f32 slab
+    arithmetic can never cull a primitive the exact test would hit."""
+    k = pr["kind"]
+    if k == 0:       # triangle: v0, e1, e2
+        v0 = np.asarray(pr["g0"])
+        pts = np.stack([v0, v0 + pr["g1"], v0 + pr["g2"]])
+    elif k == 1:     # rect: p0, e1, e2
+        p0 = np.asarray(pr["g0"])
+        e1 = np.asarray(pr["g1"])
+        e2 = np.asarray(pr["g2"])
+        pts = np.stack([p0, p0 + e1, p0 + e2, p0 + e1 + e2])
+    else:            # sphere: both motion endpoints ± radius
+        c0 = np.asarray(pr["g0"])
+        c1 = np.asarray(pr["g1"])
+        r = abs(pr["g2"][0])
+        pts = np.stack([c0 - r, c0 + r, c1 - r, c1 + r])
+    lo, hi = pts.min(axis=0), pts.max(axis=0)
+    pad = 1e-4 + 1e-4 * np.maximum(hi - lo, np.abs(lo) + np.abs(hi))
+    return lo - pad, hi + pad
+
+
+def build_clusters(prims, cam_origin, csize: int = 16):
+    """Spatial clusters of `csize` prims for the unrolled scan: prims are
+    Morton-ordered by centroid, chunked, and the chunks sorted by distance
+    from the camera origin (primary rays shrink t earliest, narrowing every
+    later cluster's slab window). Returns [(aabb6, [prim,...]), ...]."""
+    los, his = zip(*[_prim_aabb(pr) for pr in prims])
+    los = np.stack(los)
+    his = np.stack(his)
+    cent = (los + his) * 0.5
+    lo = los.min(axis=0)
+    span = np.maximum(his.max(axis=0) - lo, 1e-9)
+    cell = np.clip(((cent - lo) / span * 32).astype(np.int64), 0, 31)
+
+    def spread(v):
+        v = (v | (v << 10)) & 0x30000FF
+        v = (v | (v << 4)) & 0x30C30C3
+        return (v | (v << 2)) & 0x9249249
+
+    code = spread(cell[:, 0]) | (spread(cell[:, 1]) << 1) | (
+        spread(cell[:, 2]) << 2)
+    order = np.argsort(code, kind="stable")
+    clusters = []
+    cam = np.asarray(cam_origin)
+    for i in range(0, len(prims), csize):
+        ids = order[i: i + csize]
+        box = np.concatenate([los[ids].min(axis=0), his[ids].max(axis=0)])
+        clusters.append((tuple(float(x) for x in box),
+                         [prims[j] for j in ids]))
+    clusters.sort(key=lambda c: float(np.linalg.norm(
+        (np.asarray(c[0][:3]) + np.asarray(c[0][3:])) * 0.5 - cam)))
+    return clusters
+
+
 # Deferred sphere normals pay per SPHERE in the scan but cost two extra
 # loop-carried values; with few spheres the carries cost more than they
 # save. The threshold was set on the previous accelerator and is untuned
@@ -362,9 +417,26 @@ def _scan_prims(prims, o, d, time, t_min, carry, want_mat, defer=True):
     return (best_t, hit_i, n[0], n[1], n[2], mat_idx, rr, code)
 
 
-def _intersect_static(prims, o, d, time, t_min, t_max_init, want_mat=True):
+# Cluster-skipping gate, off by default: a block-union slab test per
+# 16-prim cluster costs more than the primitives it skips on Shirley's
+# incoherent bounce rays (H100, 128 prims, 256²@128: 57.3 ms clustered vs
+# 40.4 ms flat), though the clustered kernel compiled in 18.6 s vs 44.9 s.
+# The path and its differential test stay for scenes with real spatial
+# separation.
+CLUSTER_MIN_PRIMS = 1 << 30
+
+
+def _intersect_static(prims, o, d, time, t_min, t_max_init, want_mat=True,
+                      clusters=None):
     """Closest hit vs the static scene, unrolled. Returns dict of per-lane
-    hit data (t, hit, normal, p, mat index as int32)."""
+    hit data (t, hit, normal, p, mat index as int32).
+
+    With `clusters`, each 16-prim chunk is guarded by a block-union slab
+    test against the chunk's AABB and skipped via lax.cond when no lane's
+    [t_min, best_t) window can enter it — the two-level answer to the
+    reference's per-ray BVH descent (bvh4.go:49-163) at unroll scale. The
+    per-lane best_t feeds the slab far plane, so clusters behind every
+    lane's current hit are skipped too (tMax shrink, bvh4.go:130)."""
     shape = o[0].shape
     defer = sum(1 for pr in prims if pr["kind"] == 2) >= DEFER_MIN_SPHERES
     zf0 = jnp.zeros(shape, jnp.float32)
@@ -375,8 +447,26 @@ def _intersect_static(prims, o, d, time, t_min, t_max_init, want_mat=True):
              jnp.full(shape, -1, jnp.int32),
              zf0 + 1.0 if defer else zf0,
              zi0)
-    carry = _scan_prims(prims, o, d, time, t_min, carry, want_mat,
-                        defer=defer)
+    if clusters is None:
+        carry = _scan_prims(prims, o, d, time, t_min, carry, want_mat,
+                            defer=defer)
+    else:
+        inv = tuple(1.0 / jnp.where(dc == 0.0, 1e-30, dc) for dc in d)
+        for bbox, cprims in clusters:
+            tn = jnp.full(shape, t_min, jnp.float32)
+            tf_ = carry[0]
+            for ax in range(3):
+                t0b = (jnp.float32(bbox[ax]) - o[ax]) * inv[ax]
+                t1b = (jnp.float32(bbox[3 + ax]) - o[ax]) * inv[ax]
+                tn = jnp.maximum(tn, jnp.minimum(t0b, t1b))
+                tf_ = jnp.minimum(tf_, jnp.maximum(t0b, t1b))
+            anyhit = jnp.max(jnp.where(tf_ > tn, 1, 0)) > 0
+            carry = jax.lax.cond(
+                anyhit,
+                lambda c, cp=cprims: _scan_prims(cp, o, d, time, t_min, c,
+                                                 want_mat, defer=defer),
+                lambda c: c,
+                carry)
     best_t, hit_i, nx, ny, nz, mat_idx, rr, code = carry
     p = _add(o, _scale(d, best_t))
     # Resolve deferred sphere normals: code 0 = literal normal in n; else
@@ -491,6 +581,8 @@ def _lights_pdf(lights, o, v):
 # lanes per thread measured 30% slower). Frames with fewer than MIN_SLOTS
 # pixels get replica slots (the same pixel on disjoint sample ranges) so
 # more programs share the drain tail; 1<<18 beat 1<<16 by 7% on cornell.
+# Swept on cornell 256²@1024 (scripts/engine_timing.py); the spectral
+# kernel keeps its own values.
 BLOCK = 128
 NUM_WARPS = 4
 MIN_SLOTS = 1 << 18
@@ -598,6 +690,8 @@ def build_renderer(cs, meta, settings, nx: int, ny: int, spp: int,
     mats = static.mats
     lights = static.lights
     sentinel = (0.0, 0.0, 1.0)
+    clusters = (build_clusters(prims, cam["origin"])
+                if len(prims) >= CLUSTER_MIN_PRIMS else None)
 
     any_metal = any(m["kind"] == mt.MAT_METAL for m in mats)
     any_diel = any(m["kind"] == mt.MAT_DIELECTRIC for m in mats)
@@ -656,7 +750,8 @@ def build_renderer(cs, meta, settings, nx: int, ny: int, spp: int,
             rad = st["rad"]
             cnt = st["cnt"] + live.astype(jnp.int32)
 
-            rec = _intersect_static(prims, o, d, tme, T_MIN, T_MAX)
+            rec = _intersect_static(prims, o, d, tme, T_MIN, T_MAX,
+                                    clusters=clusters)
             hit = rec["hit"]
             nrm = rec["n"]
             p = rec["p"]
@@ -753,7 +848,8 @@ def build_renderer(cs, meta, settings, nx: int, ny: int, spp: int,
                     # Beer–Lambert exit re-trace (dielectric.go:118-153)
                     start = _add(p, _scale(d_diel, 1e-3))
                     ex = _intersect_static(prims, start, d_diel, tme,
-                                           0.0, 1000.0, want_mat=False)
+                                           0.0, 1000.0, want_mat=False,
+                                           clusters=clusters)
                     dl = _sub(ex["p"], p)
                     plen = jnp.sqrt(_dot(dl, dl))
                     plen = jnp.clip(plen, 0.1, 100.0)

@@ -30,7 +30,6 @@ import numpy as np
 
 from izpi_tpu.materials import tables as mt
 from izpi_tpu.ops import threefry as tf
-from izpi_tpu.ops import megakernel as mk
 from izpi_tpu.ops.megakernel import (
     MAX_UNROLL_PRIMS, T_MIN, T_MAX, TWO_PI, CAMERA_SALT, _add, _c, _dot,
     _intersect_static, _lights_pdf, _lights_sample, _norm, _onb_from_w,
@@ -41,6 +40,14 @@ from izpi_tpu.spectral import cie
 
 LAMBDA_SALT = 0x7A3B  # wavefront.py LAMBDA_SALT — same λ stream as the pool
 MAX_KNOTS = 128       # SPD segment budget before falling back to full grid
+
+# Launch geometry (ops.megakernel.plan_launch), swept on its own bench frame
+# (spectral_pyramid 500²@256) with scripts/engine_timing.py on an H100:
+# 256 lanes over 8 warps 107.7 ms, the RGB kernel's 128/4 with two replicas
+# 120-122 ms; replicas change nothing at 256/8 (108.7 ms).
+BLOCK = 256
+NUM_WARPS = 8
+MIN_SLOTS = 1 << 16
 
 
 # --------------------------------------------------------------------------
@@ -245,7 +252,7 @@ def build_renderer(cs, meta, settings, nx: int, ny: int, spp: int,
     n_pix = nx * ny
     max_depth = int(settings.max_depth)
 
-    lp = plan_launch(n_pix, spp, mk.BLOCK, mk.NUM_WARPS, mk.MIN_SLOTS)
+    lp = plan_launch(n_pix, spp, BLOCK, NUM_WARPS, MIN_SLOTS)
     spp_slot = spp // lp.repl
     shape = (lp.block,)
 

@@ -39,6 +39,97 @@ def test_megakernel_matches_oracle(ctx):
     np.testing.assert_allclose(img, a.image, atol=1e-5)
 
 
+def test_megakernel_refill_matches_oracle(ctx, monkeypatch):
+    """Without replica slots each slot walks all 3 samples of its pixel,
+    refilling in the kernel: the sums still match the oracle's."""
+    from izpi_tpu.core import rng
+    from izpi_tpu.ops import megakernel
+
+    monkeypatch.setattr(megakernel, "MIN_SLOTS", 1)
+    s = path_mod.RenderSettings(max_depth=4)
+    nx = ny = 6
+    spp = 3
+    assert megakernel.plan_launch(nx * ny, spp, megakernel.BLOCK,
+                                  megakernel.NUM_WARPS, 1).repl == 1
+    a = renderer.render(None, nx, ny, spp, settings=s, seed=3,
+                        mode="simple", context=ctx)
+    acc, nrays = jax.jit(megakernel.build_renderer(
+        ctx.cs, ctx.meta, s, nx, ny, spp, interpret=True))(
+            rng.render_key(3), 0)
+    img = (np.asarray(acc) / spp).reshape(ny, nx, 3)[::-1]
+    assert int(nrays) == a.rays_traced
+    np.testing.assert_allclose(img, a.image, atol=1e-5)
+
+
+def _sphere_field(n_spheres: int):
+    from izpi_tpu.scene import types as st
+
+    rs = np.random.RandomState(4)
+    world = [st.Sphere((0, -1000, 0), (0, -1000, 0), 0, 1, 1000,
+                       st.Lambertian(albedo=st.ConstantTexture(
+                           (0.5, 0.5, 0.5))))]
+    for i in range(n_spheres):
+        c = ((rs.rand(3) - 0.5) * np.array([20, 0, 20])
+             + np.array([0, 0.4, 0]))
+        world.append(st.Sphere(tuple(c), tuple(c), 0, 1, 0.4,
+                               st.Metal(albedo=(0.8, 0.6, 0.4), fuzz=0.1)
+                               if i % 3 else
+                               st.Lambertian(albedo=st.ConstantTexture(
+                                   tuple(rs.rand(3))))))
+    cam = st.Camera(look_from=(13, 2, 3), look_at=(0, 0, 0), vfov=20,
+                    aspect=1.0)
+    return st.Scene(world=world, camera=cam)
+
+
+def test_megakernel_clustered_matches_flat(monkeypatch):
+    """Cluster-skipped unrolled scan (>= CLUSTER_MIN_PRIMS prims) must match
+    the flat unrolled scan bit-for-bit — cluster culling may only skip
+    primitives whose slab window is empty for every lane. (Compared against
+    the flat MEGAKERNEL, not the matrix-brute oracle: the sphere quadratic
+    is formulated differently there and near-tangent hits legitimately
+    flip, PERF.md.)"""
+    from izpi_tpu.core import rng
+    from izpi_tpu.ops import megakernel
+
+    scene = _sphere_field(80)   # > CLUSTER_MIN_PRIMS -> clustered scan
+    s = path_mod.RenderSettings(max_depth=4, background=(0.7, 0.8, 1.0))
+    nx = ny = 8
+    spp = 2
+    key = rng.render_key(5)
+
+    monkeypatch.setattr(megakernel, "CLUSTER_MIN_PRIMS", 64)
+    ctx_c = renderer.RenderContext(scene)
+    static = megakernel.extract_static(ctx_c.cs, ctx_c.meta)
+    assert len(static.prims) >= megakernel.CLUSTER_MIN_PRIMS
+    acc_c, n_c = ctx_c.mega_runner(nx, ny, spp, s, interpret=True)(key, 0)
+
+    monkeypatch.setattr(megakernel, "CLUSTER_MIN_PRIMS", 10_000)
+    ctx_f = renderer.RenderContext(scene)
+    acc_f, n_f = ctx_f.mega_runner(nx, ny, spp, s, interpret=True)(key, 0)
+
+    assert int(n_c) == int(n_f)
+    np.testing.assert_allclose(np.asarray(acc_c), np.asarray(acc_f),
+                               atol=1e-6)
+
+
+def test_build_clusters_partition_and_bounds():
+    """Clusters partition the prims into 16-prim chunks, and each chunk's
+    box holds every prim's padded box."""
+    from izpi_tpu.ops import megakernel
+
+    ctx = renderer.RenderContext(_sphere_field(40))
+    prims = megakernel.extract_static(ctx.cs, ctx.meta).prims
+    clusters = megakernel.build_clusters(prims, (13.0, 2.0, 3.0))
+    assert [len(c) for _, c in clusters].count(16) == len(prims) // 16
+    assert sorted(id(p) for _, c in clusters for p in c) == sorted(
+        id(p) for p in prims)
+    for box, cprims in clusters:
+        for pr in cprims:
+            lo, hi = megakernel._prim_aabb(pr)
+            assert (np.asarray(box[:3]) <= lo).all()
+            assert (hi <= np.asarray(box[3:])).all()
+
+
 def test_megakernel_sample_offset_chunks(ctx):
     """Two chunked runs (offset 0 and 2) must sum to one 4-spp run —
     the checkpoint/resume contract."""
@@ -123,6 +214,22 @@ def test_megakernel_lowers_to_triton_for_cuda(scene_name, spectral):
         lowering_platforms=("cuda",)).as_text()
     assert "__gpu$xla.gpu.triton" in text
     assert "tpu_custom_call" not in text
+
+
+def test_clustered_megakernel_lowers_to_triton_for_cuda(monkeypatch):
+    """The cluster-skipping scan (lax.cond per cluster inside the kernel)
+    also lowers through Triton."""
+    from izpi_tpu.core import rng
+    from izpi_tpu.ops import megakernel
+
+    monkeypatch.setattr(megakernel, "CLUSTER_MIN_PRIMS", 64)
+    ctx = renderer.RenderContext(_sphere_field(80))
+    fn = megakernel.build_renderer(ctx.cs, ctx.meta,
+                                   path_mod.RenderSettings(max_depth=4),
+                                   8, 8, 2)
+    text = jax.jit(fn).trace(rng.render_key(0), 0).lower(
+        lowering_platforms=("cuda",)).as_text()
+    assert "__gpu$xla.gpu.triton" in text
 
 
 @pytest.mark.parametrize("backend,scene_name,want", [

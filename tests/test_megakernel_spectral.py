@@ -43,6 +43,13 @@ def test_spectral_mega_matches_pool_prism_dispersion():
     _compare(with_prism=True, max_depth=8)
 
 
+def test_spectral_mega_refill_matches_pool(monkeypatch):
+    """Without replica slots each slot walks all 4 samples of its pixel,
+    refilling λ and the path constants in the kernel."""
+    monkeypatch.setattr(megakernel_spectral, "MIN_SLOTS", 1)
+    _compare(with_prism=True, nx=6, ny=6, max_depth=8)
+
+
 def test_piecewise_knots_reproduce_grid():
     from izpi_tpu.scene.compiler import compile_scene
     import jax.numpy as jnp
